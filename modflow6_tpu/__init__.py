@@ -1,7 +1,8 @@
-"""modflow6-tpu: a TPU-native (JAX/XLA/Pallas) groundwater simulation framework.
+"""modflow6_tpu: a JAX/XLA groundwater simulation framework.
 
 A from-scratch reimplementation of the capabilities of USGS MODFLOW 6
-(reference: /root/reference, v6.7.0.dev1) designed for TPU hardware:
+(reference: MODFLOW 6.7.0.dev1) designed for accelerators; it runs on
+NVIDIA GPUs, and on the CPU for tests:
 
 - all grid state is dense ``jnp`` arrays over a static topology
 - packages are pure functions ``(state, params, t) -> matrix/rhs contributions``

@@ -17,7 +17,7 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="mf6tpu",
-        description="TPU-native MODFLOW 6-compatible simulator")
+        description="MODFLOW 6-compatible groundwater simulator (JAX)")
     ap.add_argument("workspace", nargs="?", default=".",
                     help="directory containing mfsim.nam (default: cwd)")
     ap.add_argument("-v", "--version", action="store_true",
@@ -63,4 +63,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from modflow6_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -5,7 +5,7 @@ Equivalent in capability to the reference's DIS package
 numbering (layer-major, then row, then column), and the CSR connection
 topology built from the 7-point stencil.
 
-TPU-first notes: node ordering is chosen so that the last axis (columns) is
+Layout notes: node ordering is chosen so that the last axis (columns) is
 contiguous — a DIS field reshapes to (nlay, nrow, ncol) with ncol innermost,
 which is the layout the structured-stencil fast path and the sharded halo
 exchange use.

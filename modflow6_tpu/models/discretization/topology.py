@@ -3,10 +3,10 @@
 Equivalent in capability to the reference's ConnectionsType
 (src/Model/ModelUtilities/Connections.f90:19-55): per-connection geometry
 arrays (cl1/cl2/hwva/ihc) over the symmetric half of the adjacency, plus the
-full CSR pattern.  Redesigned for TPU:
+full CSR pattern.  Redesigned for accelerators:
 
 - the *symmetric-half edge list* (arrays over edges, n < m) drives vectorized
-  conductance computation (one VPU pass over all connections at once);
+  conductance computation (one vectorized pass over all connections at once);
 - an *ELL packing* (fixed max-degree neighbor table) stores the assembled
   off-diagonal coefficients so SpMV is K gathers + K fused multiply-adds with
   fully static shapes — no CSR row pointers on device;

@@ -2,7 +2,7 @@
 
 The reference appends package equations to the solution matrix through
 ``bnd_ac``/``bnd_mc`` (extra connections) and fills them in ``bnd_fc``
-(gwf-maw.f90:1-4666, gwf-lak.f90:1-6149, gwf-sfr.f90:1-5893).  The TPU
+(gwf-maw.f90:1-4666, gwf-lak.f90:1-6149, gwf-sfr.f90:1-5893).  This
 redesign generalizes the ELL system instead: the solution vector becomes
 ``x = [head(N), pkg_dofs(R)]``, the neighbor table is extended with
 package↔cell and package↔package slots (host-built once), and every

@@ -24,7 +24,7 @@ sweep inside a lax.while_loop stress iteration (csub_delay_sln role).
 Not implemented (loud guard): material-property updating
 (UPDATE_MATERIAL_PROPERTIES) and water-compressibility terms.
 
-TPU design: stresses are dense per-cell vectors (the down-column
+Design: stresses are dense per-cell vectors (the down-column
 geostatic accumulation is a cumsum over the layer axis); interbeds are
 vectorized lists scattered onto their cells' rows; all state
 (es0/pcs/compaction) rides a pytree through jit.

@@ -15,7 +15,7 @@ src/Model/GroundWaterFlow/gwf-csub.f90 —
   scaled by area·rnb),
 - csub_delay_calc_comp (compaction from strain increments per node).
 
-TPU design: all delay interbeds solve simultaneously — the column state
+Design: all delay interbeds solve simultaneously — the column state
 is a dense [n_interbeds, ndelaycells] array, the Thomas solve is a pair
 of lax.scan sweeps over the (static) column length batched across
 interbeds, and the nonlinear stress iteration is one lax.while_loop for

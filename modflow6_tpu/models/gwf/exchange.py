@@ -6,7 +6,7 @@ conductance terms between node pairs of different models into the global
 system (gwf_gwf_fc exg-gwfgwf.f90:488-550), with per-pair CVFD geometry
 (ihc/cl1/cl2/hwva/angldegx from DisConnExchange.f90).
 
-TPU-native formulation: instead of separate model matrices glued by an
+Formulation: instead of separate model matrices glued by an
 exchange object, the models are merged into ONE composite model whose
 topology is the disjoint union of the member topologies plus the exchange
 edges (models.discretization.topology.concat_topologies).  Every kernel —

@@ -12,7 +12,7 @@ rhs(m) += them, re-evaluated each Picard iteration (the reference's
 implicit mode puts the same terms in the matrix; the explicit form
 converges with the nonlinear outer loop and keeps the stencil intact).
 
-TPU design: contributors are a dense [G, J] table (α = 0 padding); the
+Design: contributors are a dense [G, J] table (α = 0 padding); the
 per-iteration correction is two gathers + one scatter-add, with the
 connection conductances gathered from the same edge-conductance vector
 the NPF fill uses.

@@ -212,10 +212,10 @@ class GwfModel:
         """True when the assembled system does not depend on the current
         head iterate: every cell confined (sat ≡ 1), storage non-convertible,
         and no head-switched boundary terms.  The fused solver then hoists
-        assembly out of the Picard loop — the TPU-native analog of the
-        reference's confined-cell work skip in npf_cf (gwf-npf.f90:444-470):
-        on TPU the f64 assembly is emulated-precision compute and dominates
-        the outer iteration unless hoisted."""
+        assembly out of the Picard loop — the analog of the reference's
+        confined-cell work skip in npf_cf (gwf-npf.f90:444-470): the f64
+        assembly is then paid once per time step, not once per outer
+        iteration."""
         if self.inewton or self.ixt3d or self.wel_iflowred:
             return False
         if self.buy is not None or self.vsc is not None:

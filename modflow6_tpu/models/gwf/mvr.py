@@ -18,7 +18,7 @@ Behavioral parity targets in the reference:
   SFR downstream outflow, LAK outlet flows, MAW pumped rate); receivers
   get qfrommvr as extra inflow in their continuity equations.
 
-TPU design: the mover list is static (host metadata); the per-iteration
+Design: the mover list is static (host metadata); the per-iteration
 evaluation unrolls at trace time into a short chain of vectorized
 gather/scatter updates on the per-package "available" vectors — the
 mover count is tiny (dozens) next to the grid, so the sequential

@@ -11,7 +11,7 @@ Behavioral parity targets in the reference:
   - hy_eff                       gwf-npf.f90:2280-2355
   - hyeff ellipsoid projection   src/Utilities/HGeoUtil.f90:29-108
 
-TPU-first design: the reference loops per connection with scalar math; here
+Design: the reference loops per connection with scalar math; here
 every per-connection quantity is an array over the symmetric-half edge list,
 so the whole `cf`+`fc` phase is a fused elementwise pass followed by one
 unique-index scatter into the ELL matrix and two segment-sums onto the

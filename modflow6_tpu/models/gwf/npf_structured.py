@@ -4,7 +4,7 @@ Same physics as npf.assemble (behavioral parity: gwf-npf.f90 npf_fc /
 calc_condsat), but expressed as dense per-direction slice operations on
 (nlay, nrow, ncol) fields — no edge gathers, no scatters.  Combined with
 ops.system.spmv_structured this makes the entire outer iteration pure
-dense VPU work at HBM bandwidth.
+dense elementwise work, bound by memory bandwidth.
 
 Applicability: DIS topologies with ``grid_shape`` set (adjacent-layer
 vertical connections) and no rotated-anisotropy angles.  Inactive cells

@@ -24,7 +24,7 @@ and deliver recharge to the *water table* (not the column bottom):
 - when the head rises above land surface, groundwater discharges to the
   surface through a vks-scaled drain (gwseep, iseepflag).
 
-TPU-native redesign (NOT a port): the reference solves the PDE by exact
+Redesign (NOT a port): the reference solves the PDE by exact
 method-of-characteristics wave tracking — per-cell dynamic lists of
 trailing/lead waves, deeply sequential and shape-dynamic.  Here the same
 PDE is solved with a conservative first-order upwind finite-volume

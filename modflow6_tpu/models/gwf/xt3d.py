@@ -1,4 +1,4 @@
-"""XT3D full-tensor flux approximation, vectorized for TPU.
+"""XT3D full-tensor flux approximation, vectorized over connections.
 
 Behavioral parity targets in the reference:
   - coefficient math      src/Model/ModelUtilities/Xt3dAlgorithm.f90:47-490
@@ -9,7 +9,7 @@ Behavioral parity targets in the reference:
     :1300-1378 (xt3d_areas), :1577-1611 (xt3d_fillrmatck);
     Dis.f90:1039-1160 / Disv.f90:979-1080 (connection normal/vector)
 
-TPU redesign: the reference loops cells×neighbors with scalar work arrays;
+Redesign: the reference loops cells×neighbors with scalar work arrays;
 here every per-connection quantity is an [E] or [E, K] array aligned with
 the ELL neighbor table, and the whole coefficient computation (rotation
 matrices, omega weights, 2×2 solves, sigma products) is one batched einsum

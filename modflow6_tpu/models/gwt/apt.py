@@ -15,7 +15,7 @@ Behavioral parity targets:
   eqnsclfac (energy per unit temperature) — pass a GWE-configured base
   model and the scaling rides through.
 
-TPU design: mirrors AugmentedGwfModel — the transport vector becomes
+Design: mirrors AugmentedGwfModel — the transport vector becomes
 x = [conc(N), c_feat(R)] with the same widened neighbor table; because
 the flow field is frozen within a transport step, ALL feature terms are
 linear and enter the matrix directly (no Picard lagging), including the

@@ -2,7 +2,7 @@
 
 Behavioral parity target: src/Exchange/exg-gwtgwt.f90 — advective and
 dispersive coupling of transport models across the same interface the
-GWF-GWF exchange defines.  TPU-native formulation (mirroring
+GWF-GWF exchange defines.  Formulation (mirroring
 models.gwf.exchange): the member transport models are merged into ONE
 composite GwtModel over the merged flow model's topology — the exchange
 edges are then ordinary edges, so upstream advection weighting and

@@ -6,7 +6,7 @@ time step; src/Solution/ExplicitSolution.f90:39) with PRP release
 scheduling (prt-prp.f90 prp_rp) and track-file output
 (src/Solution/ParticleTracker/TrackControl.f90 role).
 
-TPU design: all particles live in fixed-shape arrays (npts × nreleases);
+Design: all particles live in fixed-shape arrays (npts × nreleases);
 each accepted flow step builds the cell flow fields once and advances
 (a) the already-live swarm for the full step and (b) each release batch
 whose release instant falls inside the step for the remainder of the

@@ -6,7 +6,7 @@ and MethodSubcellPollock.f90), orchestrated per-cell by MethodDis
 (src/Solution/ParticleTracker/MethodDis.f90).  The reference dispatches a
 method object per particle per cell; here the whole swarm advances in one
 ``vmap`` of a ``lax.while_loop`` cell-transition kernel — every particle is
-tracked simultaneously with static shapes (the natural TPU formulation of
+tracked simultaneously with static shapes (the natural data-parallel formulation of
 an embarrassingly parallel workload).
 
 Pollock's method: within a cell, each face-normal velocity component varies

@@ -8,7 +8,7 @@ in mass balance; within a triangle the velocity is the lowest-order
 Raviart-Thomas (RT0) field matching the three edge fluxes, and the exit
 time through each edge has a closed form.
 
-TPU-native redesign (NOT a port): the reference walks one particle at a
+Redesign (NOT a port): the reference walks one particle at a
 time through per-cell method objects, solving exit times with
 root-finding fallbacks in skew coordinates.  Here the key observation is
 that the RT0 field on a triangle is v(x) = c·x + d with a *scalar*

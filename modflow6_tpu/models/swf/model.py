@@ -14,7 +14,7 @@ Behavioral parity targets in the reference:
 - CHF/OLF thin wrappers (chf.f90:22, olf.f90:22): same engine on a 1-D
   channel topology (DISV1D role) or a 2-D raster (DIS2D role).
 
-TPU design: all reach state is dense vectors; the Newton Jacobian is
+Design: all reach state is dense vectors; the Newton Jacobian is
 assembled edge-wise from three vectorized conductance evaluations (base,
 stage_n+ε, stage_m+ε) — the same finite-difference linearization the
 reference uses, with no scalar loops.  The model plugs into the standard

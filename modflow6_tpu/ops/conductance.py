@@ -10,7 +10,7 @@ Behavioral parity targets in the reference (semantics, not code):
 
 Every function operates elementwise on arrays of per-connection quantities
 (one entry per symmetric half-connection), so the whole NPF conductance
-recalculation is a single fused VPU pass instead of the reference's
+recalculation is a single fused elementwise pass instead of the reference's
 per-connection scalar loop.
 
 Averaging method (``icellavg``) and formulation flags are *static* Python

@@ -11,7 +11,7 @@ so that Manning flow is Q = C(d)·√S.  Shared by SFR reaches
 (gwf-sfr.f90 cross-section option) and SWF/CHF CXS packages
 (swf-cxs.f90 get_conveyance).
 
-TPU design: all segments of all reaches evaluate in parallel as dense
+Design: all segments of all reaches evaluate in parallel as dense
 [n_reach, n_pts-1] arrays; ragged sections are padded by repeating the
 last station (zero-length segments contribute nothing).  Derivatives for
 Newton fills come from numerical perturbation like the reference's

@@ -1,4 +1,4 @@
-"""Smooth saturation / scaling functions, vectorized for the VPU.
+"""Smooth saturation / scaling functions, vectorized elementwise.
 
 Behavioral parity targets (semantics, not code) in the reference:
   - quadratic_saturation            src/Utilities/SmoothingFunctions.f90:275-324

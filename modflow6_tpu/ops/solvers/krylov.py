@@ -6,7 +6,7 @@ Behavioral parity targets in the reference IMS linear solver:
   - convergence test ims_base_testcnvg (ImsLinearBase.f90)
   - epfact    ims_base_epfact
 
-TPU-first design: the entire inner iteration runs inside one
+Design: the entire inner iteration runs inside one
 ``lax.while_loop`` on device — no host round trips per iteration.  The
 matrix-vector product and the reduction ("dot") are injected as functions so
 the same loop body serves the single-chip path (ELL SpMV, local dot) and
@@ -32,9 +32,8 @@ from ...constants import DPREC, DSAME
 def vector_dot(a, b):
     """Default dot product.
 
-    Deliberately ``sum(a*b)`` and NOT ``jnp.vdot``: vdot lowers to a
-    dot_general that is pathologically slow (~6 ms at 1M f64) inside TPU
-    while-loops, while multiply+reduce stays a fast VPU reduction.
+    ``sum(a*b)``: a multiply fused into a reduction, which XLA emits
+    as one pass over both vectors.
     """
     return jnp.sum(a * b)
 
@@ -203,11 +202,10 @@ def refined_solve(
 ) -> KrylovResult:
     """Mixed-precision linear solve: f32 Krylov + f64 iterative refinement.
 
-    TPU-native design point: TPU v5e/v6e have no hardware float64 — XLA
-    emulates it on the VPU at ~20x the cost of f32 — so running the Krylov
-    inner loop (the reference's ims_base_cg hot loop,
-    ImsLinearBase.f90:30-240) in f64 wastes almost the entire machine.
-    Classic iterative refinement recovers full f64 accuracy:
+    Design point: the Krylov inner loop (the reference's ims_base_cg hot
+    loop, ImsLinearBase.f90:30-240) is bound by memory bandwidth, and f32
+    halves the bytes every iteration moves.  Classic iterative refinement
+    recovers full f64 accuracy:
 
         r = b - A x                (f64 residual, exact to working precision)
         repeat:  solve A d = r in f32 (Krylov, stagnation-guarded)

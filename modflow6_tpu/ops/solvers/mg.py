@@ -1,8 +1,8 @@
 """Geometric multigrid V-cycle preconditioner for structured DIS systems.
 
 Plays the iteration-count-cutting role of the reference IMS ILU(0)/ILUT
-factorizations (ImsLinearBase.f90:928-1042) with a construction that is
-actually fast on TPU: every ingredient is a dense reshape/pool/shift on the
+factorizations (ImsLinearBase.f90:928-1042) with a construction that
+vectorizes: every ingredient is a dense reshape/pool/shift on the
 (nlay, nrow, ncol) stencil coefficient fields — no triangular solves, no
 sequential dependencies, no gathers.
 
@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
+from ..system import spmv_structured
+
 
 # fixed Chebyshev smoothing window for Jacobi-scaled CVFD stencils:
 # Gershgorin bound λmax ≤ 2 (M-matrix rows) with margin; smooth the upper
@@ -39,46 +41,13 @@ _SMOOTH_LO = _LMAX / 4.0
 _COARSE_LO = _LMAX / 64.0
 
 
-def _matvec3(diag3, c, x3):
-    """y = A x on dense stencil fields: 6 shifted multiply-adds (VPU only).
-    Slot order matches ops.system.spmv_structured: [E, W, N, S, U, D]."""
-
-    def shift(arr, axis, d):
-        sl = [slice(None)] * 3
-        pad = [[0, 0], [0, 0], [0, 0]]
-        if d == +1:
-            sl[axis] = slice(1, None)
-            pad[axis][1] = 1
-        else:
-            sl[axis] = slice(None, -1)
-            pad[axis][0] = 1
-        return jnp.pad(arr[tuple(sl)], pad)
-
-    y = diag3 * x3
-    y = y + c[..., 0] * shift(x3, 2, +1)
-    y = y + c[..., 1] * shift(x3, 2, -1)
-    y = y + c[..., 2] * shift(x3, 1, -1)
-    y = y + c[..., 3] * shift(x3, 1, +1)
-    y = y + c[..., 4] * shift(x3, 0, -1)
-    y = y + c[..., 5] * shift(x3, 0, +1)
-    return y
-
-
 def _level_matvec(diag3, c):
-    """Per-level y = A x: the fused Pallas stencil kernel when the level
-    shape tiles (fine levels — where the time goes), _matvec3 shifts
-    otherwise (coarse levels)."""
+    """Per-level y = A x on the [nlay, nrow, ncol] fields (slots as in
+    ops.system.spmv_structured: [E, W, N, S, U, D])."""
     shape = diag3.shape
-    try:
-        from ..pallas_stencil import spmv_structured_pallas, supports
-        if supports(shape, diag3.dtype):
-            cp = jnp.moveaxis(c, -1, 0)
-            dflat = diag3.reshape(-1)
-            return lambda x3: spmv_structured_pallas(
-                shape, dflat, cp, x3.reshape(-1)).reshape(shape)
-    except Exception:
-        pass
-    return lambda x3: _matvec3(diag3, c, x3)
+    dflat, off = diag3.reshape(-1), c.reshape(-1, 6)
+    return lambda x3: spmv_structured(shape, dflat, off,
+                                      x3.reshape(-1)).reshape(shape)
 
 
 def _chebyshev(mv, diag3, r3, z0, order, lo, hi):

@@ -1,8 +1,8 @@
-"""TPU-friendly preconditioners for the Krylov solvers.
+"""Vectorizable preconditioners for the Krylov solvers.
 
 The reference IMS preconditions with ILU(0)/ILUT (ImsLinearBase.f90:928-1042)
-— inherently sequential triangular solves that do not map to TPU vector
-units.  Following the design target, the TPU build replaces them with
+— inherently sequential triangular solves that do not map to wide vector
+hardware.  Following the design target, this build replaces them with
 vectorizable preconditioners with comparable iteration-count behavior:
 
 - ``jacobi``: M = diag(A); one multiply per application;
@@ -13,7 +13,7 @@ vectorizable preconditioners with comparable iteration-count behavior:
   Jacobi-scaled operator Â = D⁻¹A, with the spectral upper bound λmax
   estimated by on-device power iteration (a handful of extra SpMVs per
   outer iteration) and λmin = λmax / eig_ratio.  This is the classic
-  TPU/GPU substitute for ILU smoothing (cf. hypre/AMG Chebyshev
+  accelerator substitute for ILU smoothing (cf. hypre/AMG Chebyshev
   smoothers): optimal among fixed-degree polynomials on [λmin, λmax],
   SPD whenever A is, so CG stays valid;
 - ``ssor``-like sweeps are deliberately omitted (sequential).

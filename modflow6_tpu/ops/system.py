@@ -2,7 +2,7 @@
 
 Plays the role of the reference's MatrixBaseType/SparseMatrix CSR storage
 (src/Utilities/Matrix/MatrixBase.f90:12-36, SparseMatrix.f90) redesigned for
-TPU: the matrix is (diag[N], off[N, K]) with a static neighbor table
+accelerators: the matrix is (diag[N], off[N, K]) with a static neighbor table
 nbr[N, K], so SpMV is K gathers + fused multiply-adds with static shapes —
 no row pointers, no indirection chains, no scalar loops.
 
@@ -39,8 +39,10 @@ def spmv(nbr: jax.Array, diag: jax.Array, off: jax.Array, x: jax.Array) -> jax.A
 def spmv_structured(shape, diag, off, x):
     """Structured 7-point-stencil SpMV for DIS grids: the ELL matrix with
     fixed slots [E,W,N,S,U,D] reshapes to per-direction coefficient fields
-    and y = A x becomes six shifted multiplies — pure dense VPU work, no
-    gathers.  This is the TPU speed-of-light path (HBM-bandwidth-bound)."""
+    and y = A x becomes six shifted multiplies — dense elementwise work, no
+    gathers.  XLA fuses the pads, slices, multiplies and adds into one loop
+    that reads each input once; a hand-written Pallas kernel measured
+    slower on the H100 (PERF.md, "Stencil matvec on the H100")."""
     nlay, nrow, ncol = shape
     x3 = x.reshape(shape)
     c = off.reshape(nlay, nrow, ncol, 6)
@@ -69,18 +71,10 @@ def spmv_structured(shape, diag, off, x):
 
 
 def make_matvec(dtopo, diag, off):
-    """Best SpMV for the topology: the fused Pallas stencil kernel on
-    TPU for f32/bf16 tileable DIS systems, XLA structured shifts
-    otherwise, gathers for unstructured tables."""
-    if getattr(dtopo, "grid_shape", None) is not None:
-        shape = dtopo.grid_shape
-        from .pallas_stencil import spmv_structured_pallas, supports
-        if supports(shape, getattr(diag, "dtype", None)):
-            # pre-transpose the slot axis to leading plane layout ONCE
-            # per system (a trailing length-6 lane axis would pad 6→128)
-            nlay, nrow, ncol = shape
-            c4 = jnp.moveaxis(off.reshape(nlay, nrow, ncol, 6), -1, 0)
-            return lambda v: spmv_structured_pallas(shape, diag, c4, v)
+    """SpMV for the topology: structured shifts for DIS grids, gathers
+    for unstructured tables."""
+    shape = getattr(dtopo, "grid_shape", None)
+    if shape is not None:
         return lambda v: spmv_structured(shape, diag, off, v)
     return lambda v: spmv(dtopo.nbr, diag, off, v)
 

@@ -1,7 +1,7 @@
 """Sharded augmented models: MAW/LAK/SFR feature rows on the general
 partition.
 
-TPU-native equivalent of distributing the reference's advanced packages
+JAX equivalent of distributing the reference's advanced packages
 with their models (each MPI rank owns its models' packages; boundary
 feature↔cell coefficients ride the interface-model matrix,
 src/Model/Connection/SpatialModelConnection.f90): each feature row is

@@ -1,6 +1,6 @@
 """General (gather-based) domain decomposition: any grid, any stencil.
 
-TPU-native equivalent of the reference's interface-model machinery for
+JAX equivalent of the reference's interface-model machinery for
 arbitrary model/grid combinations (SpatialModelConnection.f90:37-66 +
 GridConnection.f90:31-80): each shard owns a contiguous block of global
 nodes plus a halo ring of depth 1 (or 2 for full XT3D — the reference's
@@ -32,7 +32,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..constants import DZERO
@@ -654,6 +654,14 @@ class GeneralShardedSolution:
             mesh = Mesh(devs, ("y",))
         assert mesh.devices.size == part.nshards
         self.mesh = mesh
+        # the stacked per-shard arrays live on their shards' devices and
+        # enter the step as arguments: closed over, they would be embedded
+        # in the program as constants, replicated on every device
+        self._fixed = jax.device_put(
+            (part.dtopo, part.npf_arrays, part.xt3d, part.ibound0, part.strt,
+             part.area, part.own, part.halo_send, part.halo_recv,
+             part.sto_arrays, part.pkgs, part.csub_arrays),
+            NamedSharding(mesh, P("y")))
         self._step = jax.jit(self._build_step(), static_argnames=("iss",))
 
     # ------------------------------------------------------------- halo
@@ -673,7 +681,6 @@ class GeneralShardedSolution:
         part = self.part
         s = self.s
         model = part.model
-        own_all = part.own
         use_cg = s.linear_acceleration == "cg"
         solver = cg if use_cg else bicgstab
 
@@ -730,8 +737,9 @@ class GeneralShardedSolution:
             return (head[None], kiter[None], converged[None],
                     inner_tot[None])
 
-        def step(head_stacked, sarr, pkgs, csub_arr, cstate, conc, delt,
-                 kstp, iss: bool):
+        def step(head_stacked, fixed, cstate, conc, delt, kstp, iss: bool):
+            (dtopo, arrays, xt3d, ib0, strt, area, own, hsend, hrecv, sarr,
+             pkgs, csub_arr) = fixed
             sp = P("y")
             rep = P()
 
@@ -739,19 +747,17 @@ class GeneralShardedSolution:
                 return jax.tree.map(lambda _: spec, tree)
 
             fn = partial(shard_fn, iss=iss)
-            in_specs = (sp, like(part.dtopo, sp), like(part.npf_arrays, sp),
-                        like(sarr, sp), like(part.xt3d, sp), sp, sp, sp,
-                        sp, like(part.halo_send, sp),
-                        like(part.halo_recv, sp), like(pkgs, sp),
+            in_specs = (sp, like(dtopo, sp), like(arrays, sp),
+                        like(sarr, sp), like(xt3d, sp), sp, sp, sp,
+                        sp, like(hsend, sp), like(hrecv, sp), like(pkgs, sp),
                         like(csub_arr, sp),
                         like(cstate, sp), like(conc, sp), rep, rep)
             out_specs = (sp, sp, sp, sp)
             sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
                            out_specs=out_specs)
-            return sm(head_stacked, part.dtopo, part.npf_arrays, sarr,
-                      part.xt3d, part.ibound0, part.strt, part.area,
-                      part.own, part.halo_send, part.halo_recv, pkgs,
-                      csub_arr, cstate, conc, delt, kstp)
+            return sm(head_stacked, dtopo, arrays, sarr, xt3d, ib0, strt,
+                      area, own, hsend, hrecv, pkgs, csub_arr, cstate, conc,
+                      delt, kstp)
 
         return step
 
@@ -763,8 +769,7 @@ class GeneralShardedSolution:
         density/viscosity coupling (scatter via scatter_heads);
         ``csub_state``: stacked CsubState (scatter_csub_state)."""
         head, kiter, converged, inner = self._step(
-            head_stacked, self.part.sto_arrays, self.part.pkgs,
-            self.part.csub_arrays, csub_state, conc,
+            head_stacked, self._fixed, csub_state, conc,
             jnp.asarray(delt), jnp.asarray(kstp, jnp.int32), iss=bool(iss))
         return head, dict(outer=int(np.asarray(kiter).max()),
                           converged=bool(np.asarray(converged).all()),

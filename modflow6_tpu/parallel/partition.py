@@ -1,6 +1,6 @@
 """Row-wise domain decomposition of a DIS model for a device mesh.
 
-TPU-native equivalent of the reference's distributed runtime
+JAX equivalent of the reference's distributed runtime
 (src/Distributed/): where the reference assigns one model per MPI rank and
 mirrors neighbor data through virtual-data containers + interface models
 (SURVEY §2.8), here one logical DIS grid is split into P row blocks, each

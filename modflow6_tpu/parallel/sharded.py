@@ -1,7 +1,7 @@
 """Sharded numerical solution: the whole Picard+Krylov time step as one
 `shard_map` program over a device mesh.
 
-TPU-native equivalent of the reference's parallel run (SURVEY §2.8/§3.3):
+JAX equivalent of the reference's parallel run (SURVEY §2.8/§3.3):
 
   reference                               here
   ---------                               ----
@@ -26,7 +26,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from ..constants import DZERO
@@ -102,6 +102,14 @@ class ShardedSolution:
                     "HFB-modified condsat requires the structured path")
             self.condsat3 = None
 
+        # the stacked per-shard arrays live on their shards' devices and
+        # enter the step as arguments: closed over, they would be embedded
+        # in the program as constants, replicated on every device
+        self._fixed = jax.device_put(
+            (self.npf_arrays, self.condsat3, part.ibound0, part.strt,
+             part.area, part.sto_arrays, part.chd, part.wel, part.rch,
+             part.drn, part.riv, part.ghb, part.evt),
+            NamedSharding(mesh, P("y")))
         self._step = jax.jit(self._build_step(), static_argnames=("iss",))
 
     # ---------------------------------------------------------------- halo
@@ -287,8 +295,9 @@ class ShardedSolution:
             return (head[None], kiter[None], converged[None],
                     inner_tot[None])
 
-        def step(head_stacked, sto_arrays, chd, wel, rch, drn, riv, ghb,
-                 evt, delt, kstp, iss: bool):
+        def step(head_stacked, fixed, delt, kstp, iss: bool):
+            (npf_arrays, condsat3, ibound0, strt, area, sto_arrays, chd, wel,
+             rch, drn, riv, ghb, evt) = fixed
             spec_shard = P("y")
             rep = P()
 
@@ -296,8 +305,8 @@ class ShardedSolution:
                 return jax.tree.map(lambda _: spec, tree)
 
             fn = partial(shard_fn, iss=iss)
-            in_specs = (spec_shard, spec_like(self.npf_arrays, spec_shard),
-                        spec_like(self.condsat3, spec_shard),
+            in_specs = (spec_shard, spec_like(npf_arrays, spec_shard),
+                        spec_like(condsat3, spec_shard),
                         spec_like(sto_arrays, spec_shard),
                         spec_shard, spec_shard, spec_shard,
                         spec_like(chd, spec_shard),
@@ -311,9 +320,8 @@ class ShardedSolution:
             out_specs = (spec_shard, spec_shard, spec_shard, spec_shard)
             sm = shard_map(fn, mesh=self.mesh, in_specs=in_specs,
                            out_specs=out_specs)
-            return sm(head_stacked, self.npf_arrays, self.condsat3,
-                      sto_arrays, self.part.ibound0, self.part.strt,
-                      self.part.area, chd, wel, rch, drn, riv, ghb, evt,
+            return sm(head_stacked, npf_arrays, condsat3, sto_arrays,
+                      ibound0, strt, area, chd, wel, rch, drn, riv, ghb, evt,
                       delt, kstp)
 
         return step
@@ -323,9 +331,7 @@ class ShardedSolution:
     def solve_timestep(self, head_stacked, delt, kstp=1, iss=False):
         """One time step. ``head_stacked``: (P, N_local) with halo rows."""
         head, kiter, converged, inner = self._step(
-            head_stacked, self.part.sto_arrays, self.part.chd,
-            self.part.wel, self.part.rch, self.part.drn, self.part.riv,
-            self.part.ghb, self.part.evt,
+            head_stacked, self._fixed,
             jnp.asarray(delt), jnp.asarray(kstp, jnp.int32), iss=bool(iss))
         return head, dict(outer=int(kiter.max()),
                           converged=bool(np.asarray(converged).all()),

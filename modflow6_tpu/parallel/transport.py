@@ -1,6 +1,6 @@
 """Distributed transport: GWT/GWE sharded on the general partition.
 
-TPU-native equivalent of the reference's distributed transport build
+JAX equivalent of the reference's distributed transport build
 (src/Distributed/VirtualGwtModel.f90:1 virtual transport models,
 src/Model/Connection/GwtGwtConnection.f90:1 interface models,
 ParallelSolution convergence reductions): flow and transport share ONE

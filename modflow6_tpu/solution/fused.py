@@ -34,8 +34,7 @@ def make_fused_step(model, settings: ImsSettings, iss: bool, kper: int = 1):
 
     # a linear model's system is constant within the time step: assemble
     # (and fix up, cast, precondition) once per step instead of once per
-    # Picard iteration — on TPU the f64 assembly is emulated-precision
-    # compute and would otherwise dominate (see GwfModel.is_linear)
+    # Picard iteration (see GwfModel.is_linear)
     hoist = getattr(model, "is_linear", False) and not use_ptc
 
     def step(head_old, delt, kstp):

@@ -1,5 +1,5 @@
 """IMS-equivalent numerical solution: Picard/Newton outer loop around the
-TPU Krylov solvers.
+Krylov solvers.
 
 Behavioral parity targets in the reference:
   - outer loop / convergence    src/Solution/NumericalSolution.f90:1482-1837
@@ -65,7 +65,7 @@ class ImsSettings:
     ptcexp: float = 1.0                  # PTC del update exponent (ats_exp)
     ptcdel0: float = 0.0                 # initial pseudo-time step (0=auto)
     precision: str = "f64"               # f64 | mixed (f32 Krylov + f64
-    # iterative refinement — the TPU-native fast path; see
+    # iterative refinement: half the bytes per Krylov iteration; see
     # ops.solvers.krylov.refined_solve)
     csv_inner_path: str = None           # CSV_INNER_OUTPUT FILEOUT: write
     # one row per inner iteration (dvmax/rmax/l2norm traces)

@@ -349,7 +349,7 @@ def load_apt(path, component):
 
     PACKAGEDATA supplies the feature starting concentrations; the PERIOD
     block's RAINFALL/RUNOFF/INFLOW/EXT-INFLOW settings supply source
-    concentrations for the feature's external inflows.  The TPU apt
+    concentrations for the feature's external inflows.  This apt
     build carries ONE source concentration per feature (AptFlows
     ext_conc), so the per-source settings collapse onto it (last one
     wins) — the reference tracks them separately

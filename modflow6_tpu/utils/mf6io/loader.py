@@ -119,14 +119,14 @@ def load_ims(path) -> ImsSettings:
             s.relaxation_factor = _f(kv["RELAXATION_FACTOR"][0])
             if s.relaxation_factor != 0.0:
                 # the reference uses this as the MILU(0)/MILUT relax in its
-                # ILU factorization (ImsLinearBase.f90 ims_base_pcu); the
-                # TPU build preconditions with Jacobi/Chebyshev polynomials
+                # ILU factorization (ImsLinearBase.f90 ims_base_pcu); this
+                # build preconditions with Jacobi/Chebyshev polynomials
                 # instead, where no such knob exists.  Warn loudly rather
                 # than silently diverge from deck intent.
                 import warnings
                 warnings.warn(
                     "IMS RELAXATION_FACTOR applies to the reference's ILU "
-                    "preconditioner; the TPU build uses polynomial "
+                    "preconditioner; this build uses polynomial "
                     "preconditioning and ignores it (iteration counts may "
                     "differ, results do not)", stacklevel=2)
         if "NUMBER_ORTHOGONALIZATIONS" in kv:
@@ -135,7 +135,7 @@ def load_ims(path) -> ImsSettings:
             import warnings
             warnings.warn(
                 "IMS PRECONDITIONER_LEVELS/DROP_TOLERANCE configure the "
-                "reference's ILUT; the TPU build maps them to a Chebyshev "
+                "reference's ILUT; this build maps them to a Chebyshev "
                 "polynomial preconditioner of matching cost", stacklevel=2)
             s.preconditioner = "chebyshev"
             s.preconditioner_order = 4

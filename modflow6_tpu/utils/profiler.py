@@ -5,8 +5,8 @@ Behavioral parity target: ProfilerType
 sections with stable handles, SUMMARY/DETAIL report printed as an indented
 tree plus the top-3 hotspots.  Device work is asynchronous under JAX, so
 ``section(..., block=True)`` inserts a ``block_until_ready`` barrier to
-attribute device time correctly (the TPU analog of the reference's
-synchronous CPU timing).
+attribute device time correctly (the asynchronous-device analog of the
+reference's synchronous CPU timing).
 """
 
 from __future__ import annotations

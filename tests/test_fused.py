@@ -84,30 +84,3 @@ def test_mixed_precision_matches_f64():
         h, info, _ = sol.solve_timestep(h, delt=dt, kstp=kstp, iss=False)
         assert info.converged
     np.testing.assert_allclose(np.asarray(h), np.asarray(h64), atol=1e-7)
-
-
-def test_pallas_stencil_matches_xla_interpret():
-    """The Pallas 7-point stencil kernel reproduces spmv_structured
-    exactly (interpret mode so the check runs on CPU)."""
-    import jax.numpy as jnp
-    from modflow6_tpu.ops.system import spmv_structured
-    from modflow6_tpu.ops import pallas_stencil as ps
-
-    nlay, nrow, ncol = 2, ps.TILE_R * 2, 128
-    shape = (nlay, nrow, ncol)
-    N = nlay * nrow * ncol
-    rng = np.random.default_rng(3)
-    diag = jnp.asarray((rng.normal(size=N) - 7).astype(np.float32))
-    c = rng.random(size=(nlay, nrow, ncol, 6)).astype(np.float32)
-    # zero border coefficients exactly as the assembly guarantees
-    c[:, :, -1, 0] = 0
-    c[:, :, 0, 1] = 0
-    c[:, 0, :, 2] = 0
-    c[:, -1, :, 3] = 0
-    c[0, :, :, 4] = 0
-    c[-1, :, :, 5] = 0
-    off = jnp.asarray(c.reshape(N, 6))
-    x = jnp.asarray(rng.normal(size=N).astype(np.float32))
-    y0 = spmv_structured(shape, diag, off, x)
-    y1 = ps.spmv_structured_pallas(shape, diag, off, x, interpret=True)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y0), atol=2e-5)
